@@ -1,6 +1,6 @@
-"""nvfpcc_tpu — a TPU-native neural volumetric field codec for point-cloud geometry.
+"""nvfpcc_tpu — a JAX neural volumetric field codec for point-cloud geometry.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the NVFPCC
+A from-scratch JAX/XLA framework with the capabilities of the NVFPCC
 reference (Hu & Wang, "Learning Neural Volumetric Field for Point Cloud
 Geometry Compression", PCS 2022): octree leaf-block partitioning, per-block
 latent embeddings + a shared quantization-aware deconvolutional decoder
@@ -8,7 +8,7 @@ overfit to a single cloud under a rate-distortion loss, and a fully
 reciprocal encode/decode bitstream (Huffman-coded quantized weights +
 range-coded latents + raw block origins).
 
-Layer map (mirrors reference layers, rebuilt TPU-first):
+Layer map (mirrors reference layers, rebuilt as compiled JAX programs):
 
 - ``nvfpcc_tpu.io``      — PLY reader/writer (host, numpy).
 - ``nvfpcc_tpu.octree``  — octree leaf partitioner (numpy + native C++ tool),
@@ -17,7 +17,7 @@ Layer map (mirrors reference layers, rebuilt TPU-first):
   integer EDT, capability of ``util_get_grids.py`` (KD-tree replaced by a
   separable min-plus distance transform).
 - ``nvfpcc_tpu.ops``     — STE rounding/bounds, GDN/IGDN, seeded quantized
-  convs, Gaussian/Laplace rate models, Pallas kernels.
+  convs, Gaussian/Laplace rate models.
 - ``nvfpcc_tpu.models``  — latent generator, entropy bottleneck, CompDecoder.
 - ``nvfpcc_tpu.train``   — jitted two-optimizer training loop (net per batch,
   embeddings once per epoch over the full set).

@@ -6,6 +6,7 @@ from nvfpcc_tpu.codec.codec import (  # noqa: F401
     PACK_FORMAT_VERSION,
     EncodeResult,
     decode,
+    decode_inputs,
     decode_origins,
     encode,
     encode_origins,

@@ -84,11 +84,11 @@ class TrainConfig:
     and the embedding lr never decays. Off by default (intended behavior)."""
     compute_dtype: str = "bf16"
     """Decoder-conv arithmetic precision during TRAINING: "bf16" (default —
-    MXU-native mixed precision; master params, STE rounding, latent entropy
-    and loss math stay f32; only the 7-layer conv chain and its gradients run
-    bf16) or "f32". Default flipped to bf16 in round 5 on the three-shape
-    A/B: RD-dominant on sphere, on-or-above the f32 RD curve on torus/helix,
-    1.13x faster epochs (RESULTS.md mixed-precision sections). Never part of
+    mixed precision; master params, STE rounding, latent entropy and loss
+    math stay f32; only the 7-layer conv chain and its gradients run bf16)
+    or "f32". Default flipped to bf16 in round 5 on the three-shape RD A/B:
+    RD-dominant on sphere, on-or-above the f32 RD curve on torus/helix
+    (RESULTS.md mixed-precision sections). Never part of
     the pack format: encode/decode always run the precision the pack declares
     (CodecConfig.recon_dtype). One caveat rides with bf16: XLA refuses convs
     differently across program layouts (epoch chunk boundaries, resume,
@@ -98,9 +98,9 @@ class TrainConfig:
     emb_chunks: int = 0
     """Block chunking for the once-per-epoch full-set embedding update.
     0 (default) = auto: one chunk up to 4096 blocks (every vox10 artifact —
-    programs unchanged), then the smallest count that fits (vox11's 5326
-    blocks OOM the single-program update on a 16 GB chip: its all-blocks conv
-    activations alone are ~13 GB). The decomposition is exact (sums over
+    programs unchanged), then the smallest count keeping each chunk at or
+    under 4096 blocks (vox11's 5326-block all-blocks conv activations alone
+    are ~13 GB). The decomposition is exact (sums over
     blocks + a global rate normalizer, train/loop.py:make_emb_full_grad —
     exact for deterministic forms, i.e. ctx modes at q=2; noise draws differ
     per chunking but are statistically identical). Ignored under block-DP
@@ -116,10 +116,10 @@ class CodecConfig:
     depth: int = 10  # vox10
     level: int = 5  # octree partition level -> 32^3 blocks
     recon_dtype: str = "f32"
-    """Reconstruction dtype, "f32" or "bf16". bf16 runs the decode chain on
-    the MXU's native precision (measured 1.30x on one v5e chip with ~0.8% of
-    thresholded voxels flipping — RESULTS.md); it rides in the pack so both
-    sides run the identical program and rc_enc == rc_dec stays structural."""
+    """Reconstruction dtype, "f32" or "bf16". bf16 runs the decode chain in
+    bfloat16 (~0.8% of thresholded voxels flip vs f32 — RESULTS.md); it rides
+    in the pack so both sides run the identical program and rc_enc == rc_dec
+    stays structural."""
 
 
 @dataclass

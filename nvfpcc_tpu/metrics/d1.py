@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nvfpcc_tpu.grids.edt import squared_edt_3d_impl, use_pallas_edt
+from nvfpcc_tpu.grids.edt import squared_edt_3d
 
 _ALIGN = 8
 
@@ -35,13 +35,11 @@ def _nn_sq_dists(
     hi = np.maximum(from_pts.max(0), to_pts.max(0)) + 2
     dims = tuple(int(d) for d in ((hi - lo + radius * 2 + _ALIGN - 1) // _ALIGN) * _ALIGN)
 
-    pallas = use_pallas_edt(platform)
-
     def run():
         occ = jnp.zeros(dims, jnp.bool_)
         rel_to = jnp.asarray(to_pts - lo + radius, jnp.int32)
         occ = occ.at[rel_to[:, 0], rel_to[:, 1], rel_to[:, 2]].set(True)
-        sq = squared_edt_3d_impl(occ, radius, pallas)
+        sq = squared_edt_3d(occ, radius)
         rel_from = jnp.asarray(from_pts - lo + radius, jnp.int32)
         return sq[rel_from[:, 0], rel_from[:, 1], rel_from[:, 2]]
 
@@ -58,13 +56,14 @@ def d1_psnr(
     rec_pts: np.ndarray,
     depth: int = 10,
     radius: int = 63,
-    platform: str | None = "cpu",
+    platform: str | None = None,
 ) -> dict:
     """Symmetric D1 metrics between integer voxel clouds.
 
     Returns {"mse_ab", "mse_ba", "mse", "psnr"} with peak = 2^depth - 1.
     Distances saturate at ``radius`` (fine unless the reconstruction is
-    pathologically far from the source).
+    pathologically far from the source). ``platform``: ``None`` (default)
+    runs the EDT on the ambient device, ``"cpu"`` on the host.
     """
     a = np.asarray(ref_pts, np.int64)
     b = np.asarray(rec_pts, np.int64)

@@ -131,7 +131,7 @@ def nn_vectors(
     from_pts: np.ndarray,
     to_pts: np.ndarray,
     radius: int = 63,
-    platform: str | None = "cpu",
+    platform: str | None = None,
 ):
     """Exact nearest-neighbor vectors ``e`` and indices ``j`` such that
     ``to_pts[j]`` is a nearest neighbor of each ``from_pts`` row and
@@ -198,7 +198,7 @@ def d2_psnr(
     depth: int = 10,
     radius: int = 63,
     normal_radius: int = 2,
-    platform: str | None = "cpu",
+    platform: str | None = None,
 ) -> dict:
     """Symmetric point-to-plane metrics between integer voxel clouds.
 

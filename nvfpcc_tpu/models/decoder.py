@@ -3,11 +3,11 @@
 Functional rebuild of the reference model stack (``NVFPCC.py:32-74`` ``Net``;
 ``utils/network.py:4490-4552`` ``QuantGaussianLikelihood``; ``:4592-4612``
 ``SingleLayerLatentGen``; ``:4648-4799`` active ``CompDecoder``), redesigned
-for TPU:
+for a compiled, batched forward:
 
 - channels-last NDHWC activations, all blocks batched through one jitted
-  forward (the reference loops blocks with B=16; we keep the MXU fed by
-  batching the full leaf set),
+  forward (the reference loops blocks with B=16; the full-set passes batch
+  the whole leaf set),
 - static ``q`` phase (1 = additive-noise proxy, 2 = STE hard rounding) so XLA
   compiles exactly two variants of the step,
 - explicit PRNG keys for all quantization noise (the reference uses global
@@ -409,7 +409,7 @@ def decoder_apply(
     the fp32 as-is pool and loads ``strict=False``, ``NVFPCC.py:577-583``).
 
     ``compute_dtype`` (training-only knob, never part of the pack format):
-    "bf16" runs the conv arithmetic at MXU-native precision while master
+    "bf16" runs the conv arithmetic in bfloat16 while master
     params, STE rounding and all rate/loss math stay f32 (see
     ``ops.conv._cast3``). Activations stay in the compute dtype between
     layers; every pre-sigmoid logit is cast back to f32 so the focal-loss

@@ -1,4 +1,4 @@
-"""Seeded, quantization-aware 3-D convolutions (channels-last, TPU layout).
+"""Seeded, quantization-aware 3-D convolutions (channels-last layout).
 
 Functional rebuild of the reference conv stack (``utils/network.py:564-742``):
 every compressible layer splits its kernel into a deterministic seeded init
@@ -21,8 +21,8 @@ the residual is quantized to the 1/16 grid and coded.
 
 Layout: activations are NDHWC, kernels are stored ``(k, k, k, Cin, Cout)``
 (DHWIO). Transposed convs are expressed as input-dilated convolutions with a
-spatially flipped kernel, which XLA lowers onto the MXU; channels-last is the
-TPU-preferred layout. Torch-equivalence (same math as the reference's
+spatially flipped kernel, which XLA lowers to its convolution backend
+(cuDNN on the GPU). Torch-equivalence (same math as the reference's
 ``F.conv3d`` / ``F.conv_transpose3d``) is covered by tests.
 """
 
@@ -276,7 +276,7 @@ def _cast3(x, kernel, b, compute_dtype):
     Mixed-precision training contract: master residuals, quantization (STE
     rounding to the 1/16 grid) and the seeded-init add all happen in f32 in
     :func:`_effective_kernel`; only the *conv arithmetic* runs at the lower
-    precision (the MXU multiplies bf16 natively and accumulates f32). Casting
+    precision (bf16 operands, f32 accumulation in the conv backend). Casting
     the bias too keeps the activation in the compute dtype instead of silently
     promoting the whole chain back to f32 on the ``out + b`` add."""
     cd = as_compute_dtype(compute_dtype)

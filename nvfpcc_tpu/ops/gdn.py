@@ -8,7 +8,7 @@ Functional, channels-last rebuild of the reference ``gdn_3d.py:32-159``:
 
 Inputs are channels-last ``(..., C)``; the 1x1x1 conv of the reference is an
 einsum over the channel axis, which XLA fuses with the surrounding
-elementwise ops on TPU.
+elementwise ops.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Block-data-parallel sharding over a TPU device mesh (SURVEY §2.4)."""
+"""Block-data-parallel sharding over a device mesh (SURVEY §2.4)."""
 
 from nvfpcc_tpu.parallel.mesh import (  # noqa: F401
     BLOCK_AXIS,

@@ -1,7 +1,7 @@
-"""Block-data-parallel sharding over a TPU device mesh.
+"""Block-data-parallel sharding over a device mesh.
 
-The reference is single-process single-GPU (SURVEY §2.4); the TPU-native
-scaling axis is the octree's leaf-block dimension: all N blocks are
+The reference is single-process single-GPU (SURVEY §2.4); the scaling axis
+here is the octree's leaf-block dimension: all N blocks are
 independent given the shared decoder, so
 
 - per-block arrays (embeddings, gt/dist grids, their Adam moments) shard
@@ -33,10 +33,9 @@ def init_distributed(
 ) -> int:
     """Initialize multi-process (multi-host) jax if requested.
 
-    On TPU pod slices the three arguments auto-detect from the environment
-    (``jax.distributed.initialize()`` with no args); for manual launches
-    (including the CPU multi-process dryrun, ``scripts/multihost_dryrun.py``)
-    pass them explicitly. Returns ``jax.process_count()``. Safe to call when
+    Pass the three arguments explicitly (coordinator ``host:port``, process
+    count, this process's id), as ``scripts/multihost_dryrun.py`` does: a
+    plain GPU host has no cluster environment to auto-detect them from. Returns ``jax.process_count()``. Safe to call when
     already initialized or single-process (no-op).
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
@@ -57,10 +56,11 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
 
     Multi-host aware: with >1 process and no explicit device list, the global
     device array is laid out (hosts, local_chips) and flattened host-major,
-    so each host's contiguous slice of the block axis lands on its own chips —
-    the per-host grid/embedding data a host feeds stays on its ICI domain and
-    only the decoder-grad psum crosses DCN (the cheapest possible multi-host
-    traffic pattern for this model: ~51k params per step).
+    so each host's contiguous slice of the block axis lands on its own
+    devices — the per-host grid/embedding data a host feeds stays on its local
+    interconnect and only the decoder-grad psum crosses hosts (the cheapest
+    possible multi-host traffic pattern for this model: ~51k params per
+    step). The mesh is 1-D: block-DP needs no topology beyond that.
     """
     if devices is None:
         if jax.process_count() > 1:

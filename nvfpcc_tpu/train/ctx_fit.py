@@ -81,9 +81,7 @@ def fit_ctx_predictor(
     stopping left +9% latent rate on the table there, RESULTS.md round 3).
     ``backend``: device platform for the fit (default None = the session's
     default device); any result is a valid pack (the fitted kernels are
-    host-quantized and shipped), so the backend is purely a wall-clock choice
-    — measured at vox11 l450 (RESULTS.md round 3): whole encode 156 s on the
-    TPU vs 500 s forced-cpu vs 1885 s for the un-early-stopped cpu fit.
+    host-quantized and shipped), so the backend is purely a wall-clock choice.
     """
     if spec.entropy_mode not in M.CTX_MODES:
         raise ValueError(f"ctx_post needs a ctx-mode spec, got {spec.entropy_mode}")
@@ -169,11 +167,12 @@ def fit_ctx_predictor(
         if backend
         else jax.local_devices()[0]
     )
-    # f32-exact matmuls regardless of backend: the TPU's default bf16 MXU
-    # precision measurably degrades the fitted rate (vox11 l200 h16 full fit:
-    # 3.617 b/sym default-precision TPU vs 3.586 CPU, RESULTS.md round 3).
-    # The fit's convs are tiny (94k syms at vox11), so the speed cost is
-    # noise; on CPU this is a no-op.
+    # f32-exact matmuls regardless of backend: a reduced-precision default
+    # (bf16 passes on some accelerators, TF32 on the GPU) measurably degrades
+    # the fitted rate (vox11 l200 h16 full fit: 3.617 b/sym at bf16-pass
+    # precision vs 3.586 at f32, RESULTS.md round 3). The fit's convs are
+    # tiny (94k syms at vox11), so the speed cost is noise; on CPU this is a
+    # no-op.
     with jax.default_device(dev), jax.default_matmul_precision("highest"):
         ep = jax.device_put(ep0, dev)
         _, bits0 = objective(ep, 2)

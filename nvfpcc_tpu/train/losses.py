@@ -14,7 +14,7 @@ Rebuild of the active reference losses (``utils/loss.py``):
 All reductions are sums (matching the reference's un-normalized sums), f32.
 An optional per-block ``block_mask`` supports padded batches under jit (the
 reference's variable last batch, ``drop_last=False`` at ``NVFPCC.py:109-111``,
-is realized as a fixed-shape masked batch on TPU).
+is realized as a fixed-shape masked batch under jit).
 """
 
 from __future__ import annotations

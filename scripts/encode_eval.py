@@ -68,10 +68,10 @@ def main() -> int:
     stats["n_points_rec"] = int(len(b))
     src = np.rint(read_ply_points(args.cloud)).astype(np.int64)
     rec = np.rint(b).astype(np.int64)
-    m = d1_psnr(src, rec, depth=args.depth, platform=None)
+    m = d1_psnr(src, rec, depth=args.depth)
     stats["d1_psnr"] = round(float(m["psnr"]), 4)
     if not args.no_d2:
-        m2 = d2_psnr(src, rec, depth=args.depth, platform=None)
+        m2 = d2_psnr(src, rec, depth=args.depth)
         stats["d2_psnr"] = round(float(m2["psnr"]), 4)
     stats["pack_bytes"] = os.path.getsize(pack)
     stats["bpp"] = round(8.0 * stats["pack_bytes"] / len(src), 4)

@@ -1,12 +1,12 @@
 """Multi-host (multi-process) block-DP dry run on CPU.
 
-Validates the pod-slice path without TPU hardware: N processes, each with
+Validates the multi-process path on one machine: N processes, each with
 ``local_devices`` virtual CPU devices, join through ``jax.distributed`` and
 run one sharded training step over the global 1-D block mesh — the same
-``nvfpcc_tpu.parallel.mesh`` + ``train.loop`` code a v5e pod slice runs
-(where the arguments to ``jax.distributed.initialize`` auto-detect instead).
+``nvfpcc_tpu.parallel.mesh`` + ``train.loop`` code a multi-host GPU cluster
+runs.
 
-Every process loads identical grids (on a pod: every host reads the same
+Every process loads identical grids (on a cluster: every host reads the same
 cloud and builds the same artifacts — grids are deterministic), places them
 with ``jax.device_put`` onto the global NamedSharding, and runs the jitted
 epoch in SPMD lockstep. Checkpoint writes happen on process 0 only

@@ -41,6 +41,19 @@ class TestParser:
         with pytest.raises(SystemExit):
             build_parser().parse_args([])
 
+    @pytest.mark.parametrize(
+        "argv",
+        [["grids", "c.ply"], ["train", "c.ply"], ["eval", "a.ply", "b.ply"],
+         ["encode", "c.ply", "--load_checkpoint", "d"], ["decode", "p.pk"]],
+    )
+    def test_platform_is_default_or_cpu(self, argv):
+        """--platform picks the ambient device or the host; nothing else."""
+        ap = build_parser()
+        assert ap.parse_args(argv).platform == "default"
+        assert ap.parse_args(argv + ["--platform", "cpu"]).platform == "cpu"
+        with pytest.raises(SystemExit):
+            ap.parse_args(argv + ["--platform", "device"])
+
 
 class TestFunctional:
     def test_grids_and_eval(self, tmp_path, capsys):
